@@ -1,4 +1,4 @@
-"""qadc-tpu: TPU-native quantized ANN search (Quick ADC capabilities, rebuilt for JAX/XLA/Pallas).
+"""qadc-tpu: quantized ANN search on GPUs (Quick ADC capabilities, rebuilt for JAX/XLA/Pallas).
 
 Reference behavior: technicolor-research/quick-adc (see SURVEY.md / ARCHITECTURE.md).
 """

@@ -229,8 +229,8 @@ def cmd_tune(args):
     """Measure and record per-geometry kernel parameters for an IVF index.
 
     No reference analog (its scan blocks are fixed by SIMD register shape);
-    on TPU the right block is a measured property of geometry x compiler —
-    see qadc_tpu/autotune.py. The recorded pick is consumed automatically by
+    here the right block is a measured property of geometry x compiler x
+    device — see qadc_tpu/autotune.py. The recorded pick is consumed automatically by
     subsequent searches of any index with the same geometry (cache file:
     QADC_AUTOTUNE_CACHE, default ~/.cache/qadc_tpu/autotune.json).
     """
@@ -381,7 +381,10 @@ def build_parser():
 
 
 def main(argv=None):
+    from qadc_tpu import compile_cache
+
     args = build_parser().parse_args(argv)
+    compile_cache.enable()
     args.fn(args)
 
 

@@ -1,9 +1,9 @@
-"""Blocked code layout for the TPU scan.
+"""Blocked code layout for the scan.
 
 The reference interleaves codes into 16-code SIMD blocks and pads the final
-block by repeating the last code (simd_layout.hpp:41-65). On TPU, Mosaic tiles
-row-major arrays itself, so codes stay row-major (N_pad, code_bytes); we keep
-only the padding convention: the tail is padded by repeating the LAST code, and
+block by repeating the last code (simd_layout.hpp:41-65). Here codes stay
+row-major (N_pad, code_bytes), stored as 128-byte rows; we keep only the
+padding convention: the tail is padded by repeating the LAST code, and
 padded labels clamp to the last real label (reference quirk: simd_scan.hpp:67,
 simd_layout.hpp:47-50 — duplicate results possible, recall tolerates it).
 """
@@ -12,8 +12,8 @@ from __future__ import annotations
 
 import numpy as np
 
-# Rows per scan-kernel block. Multiple of the int8 sublane tile (32) and large
-# enough that the one-hot MXU matmul per block is well shaped.
+# Padding granularity of flat indexes (codes): a multiple of the scan
+# kernel's block, so ranges tile evenly.
 DEFAULT_BLOCK = 1024
 
 
@@ -49,11 +49,9 @@ def codes_per_row(code_size: int) -> int:
 def to_row128(codes: np.ndarray) -> np.ndarray:
     """(N_pad, code_size) packed codes -> (N_pad/cpr, 128) storage rows.
 
-    TPU arrays want a 128-multiple minor dim: a u8 (N, 8) array gets 16x
-    layout padding whenever an op (the Pallas call included) materializes its
-    tiled form — measured 2 GB of padding for 128 MB of codes, and an HBM OOM
-    at Deep100M scale. Sixteen consecutive codes' bytes = one 128-byte row, so
-    the conversion is a host-side reshape.
+    Sixteen consecutive 8-byte codes = one 128-byte row, so the conversion
+    is a host-side reshape, and a scan window of codes-per-row codes is one
+    storage row (the rerank's row gathers rely on it).
     """
     n, cb = codes.shape
     cpr = codes_per_row(cb)

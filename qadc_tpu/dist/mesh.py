@@ -1,9 +1,10 @@
 """Device mesh setup.
 
 The reference is single-node shared-memory (SURVEY.md §2.3); distribution here
-is a new first-class subsystem: a 1-D `shard` mesh over all chips (pod slices
-included — jax.distributed handles multi-host process groups; every collective
-in dist/ rides ICI/DCN via XLA).
+is a new first-class subsystem: a 1-D `shard` mesh over all devices
+(jax.distributed handles multi-host process groups). Every collective in dist/
+is issued by XLA, which hands it to NCCL: over NVLink between the GPUs of one
+host, all to all, so the mesh needs no topology shape.
 """
 
 from __future__ import annotations
@@ -34,8 +35,8 @@ def maybe_init_distributed(
 
     Resolution order: explicit args > QADC_COORDINATOR/QADC_NUM_PROCESSES/
     QADC_PROCESS_ID env vars > (only if QADC_DISTRIBUTED=auto) jax's own
-    auto-detection (TPU pod metadata, SLURM, etc.). The auto-detect probe is
-    opt-in because in partially-configured environments (pod metadata
+    cluster auto-detection (SLURM etc.). The auto-detect probe is
+    opt-in because in partially-configured environments (cluster metadata
     reachable but coordinator down, stale SLURM vars) it can BLOCK instead of
     raising — the default must stay a guaranteed no-op for single-process
     runs.
@@ -60,7 +61,7 @@ def maybe_init_distributed(
             process_id=process_id,
         )
         return True
-    # No explicit config: the no-arg cluster probe (TPU pod, SLURM, GKE) can
+    # No explicit config: the no-arg cluster probe (SLURM, GKE) can
     # hang rather than raise when an environment is half-configured, so it is
     # opt-in via QADC_DISTRIBUTED=auto; default is a no-op.
     if os.environ.get("QADC_DISTRIBUTED") == "auto":

@@ -1,19 +1,19 @@
 """Sharded search over a device mesh.
 
 New subsystem (the reference's only "sharding" is the offline split_vecs tool,
-SURVEY.md §2.3/§5.8). Two modes, composable at pod scale:
+SURVEY.md §2.3/§5.8). Two modes:
 
 1. CODE SHARDING (flat): codes split along N over the `shard` axis; queries
    and tables replicated. Each device screens its resident shard (and float-
-   reranks its own candidates locally — candidate codes never cross chips),
+   reranks its own candidates locally — candidate codes never cross devices),
    then per-shard top-k merges with one all_gather of (dist, label) pairs.
    This is the top-k analog of context-parallel attention: partial results +
    a combiner instead of softmax renormalization.
 
 2. QUERY DATA-PARALLEL: the index is replicated; the query batch splits over
-   devices; each device runs the full single-chip search on its slice. QPS
-   scales linearly with chips — the serving mode for indexes that fit in one
-   chip's HBM.
+   devices; each device runs the full single-device search on its slice.
+   QPS scales with devices — the serving mode for indexes that fit in one
+   device's memory.
 """
 
 from __future__ import annotations
@@ -27,7 +27,9 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 
 from qadc_tpu.core.packing import gather_codes_row128, row128_to_codes, unpack_codes
 from qadc_tpu.dist.mesh import SHARD_AXIS, make_mesh
-from qadc_tpu.index.flat import FlatIndex, _prefix_size
+from qadc_tpu.index.flat import FlatIndex, _prefix_size, window_search
+from qadc_tpu.index.route import choose
+from qadc_tpu.kernels.window_scan import DEFAULT_WINDOW
 from qadc_tpu.kernels.scan_ref import adc_scan_f32, adc_scan_int8
 from qadc_tpu.ops.quantization import (
     clamp_bound_to_max_distance,
@@ -72,9 +74,11 @@ def search_qadc_flat_sharded(
     Same semantics as index.flat.search_qadc; the scan fans out over the mesh
     and candidates merge via all_gather.
 
-    use_kernel: run the Pallas LUT-scan + window-expansion path per shard
-    (default: on TPU when the local geometry allows); False = jnp scan.
-    interpret: Pallas interpret mode (CPU-mesh tests of the kernel path).
+    use_kernel: run the window scan + window-expansion path per shard
+    (default: index.route decides — on the GPU when the local geometry
+    allows); False = plain scan.
+    interpret: take the window path with the scan kernel interpreted
+    (CPU-mesh tests only; raises on an accelerator).
     """
     if mesh is None:
         mesh = make_mesh()
@@ -106,48 +110,29 @@ def search_qadc_flat_sharded(
     rr = min((2 * r) if rerank else r, local_rows)
     tflat = tables.reshape(q, m * 16)
     n_real = index.n if index.n else 0
-
-    from qadc_tpu.kernels.lut_scan import (
-        DEFAULT_BLOCK_N,
-        DEFAULT_WINDOW,
-        build_scan_tables,
-        lut_scan_reduce,
-        pick_block_n,
+    window = min(cpr, DEFAULT_WINDOW)
+    route = choose(
+        "flat_sharded_qadc", index, q=local_rows, r=rr, grouped=use_kernel,
+        interpret=interpret,
     )
 
-    window = min(cpr, DEFAULT_WINDOW)
-    bn = pick_block_n(local_rows) if local_rows % DEFAULT_BLOCK_N == 0 else DEFAULT_BLOCK_N
-    if use_kernel is None:
-        use_kernel = (
-            jax.default_backend() == "tpu"
-            and m in (16, 32)
-            and local_rows % DEFAULT_BLOCK_N == 0
-            and local_rows // window >= 2 * rr
-        )
-    tlo, thi = build_scan_tables(qtables) if use_kernel else (None, None)
-
-    def local_shard(codes_local, qt, tf, tlo, thi):
+    def local_shard(codes_local, qt, tf):
         shard_i = jax.lax.axis_index(SHARD_AXIS)
         offset = shard_i * local_rows
         glabels = jnp.minimum(
             offset + jnp.arange(local_rows, dtype=jnp.int32),
             max(n_real - 1, 0),
         )
-        if use_kernel:
-            # Pallas scan of the resident shard + window expansion; labels
+        if route.path == "window":
+            # Window scan of the resident shard + window expansion; labels
             # stay global, the rerank gathers only local rows.
-            from qadc_tpu.index.flat import window_search_rows
-
-            vals, _ = lut_scan_reduce(
-                codes_local, tlo, thi, cb=cb, block_n=bn, window=window,
-                interpret=interpret, transpose_out=True,
-            )
             local_size = jnp.clip(n_real - offset, 0, local_rows)
             rank_t = tf.reshape(q, m, 16) if rerank else qt.astype(jnp.float32)
-            cv, cl = window_search_rows(
-                codes_local, glabels, local_size, vals, rank_t, rr,
-                min(rr, local_rows // window), not rerank,
-                bn, window, interpret=interpret,
+            cv, cl = window_search(
+                codes_local, glabels, qt, rank_t, part=0,
+                range_codes=local_rows, size=local_size, r=rr,
+                wq=min(rr, local_rows // window), window=window,
+                scan=route.scan,
             )
         else:
             packed_local = row128_to_codes(codes_local, cb)
@@ -162,7 +147,8 @@ def search_qadc_flat_sharded(
                 cand_codes = gather_codes_row128(codes_local, rows, cb)  # (Q, rr, cb)
                 idx = unpack_codes(cand_codes, m, 4)
                 oh = jax.nn.one_hot(idx, 16, dtype=jnp.float32).reshape(q, rr, m * 16)
-                cv = jnp.einsum("qcf,qf->qc", oh, tf, preferred_element_type=jnp.float32)
+                cv = jnp.einsum("qcf,qf->qc", oh, tf, preferred_element_type=jnp.float32,
+                                precision=jax.lax.Precision.HIGHEST)
                 cv = jnp.where(jnp.isfinite(-neg_top), cv, jnp.inf)
             else:
                 cv = -neg_top
@@ -174,15 +160,11 @@ def search_qadc_flat_sharded(
     shard_fn = jax.shard_map(
         local_shard,
         mesh=mesh,
-        in_specs=(P(SHARD_AXIS, None), P(), P(), P(), P()),
+        in_specs=(P(SHARD_AXIS, None), P(), P()),
         out_specs=(P(), P()),
         check_vma=False,
     )
-    z = jnp.zeros((1,), jnp.int8)
-    return shard_fn(
-        index.codes, qtables, tflat,
-        tlo if use_kernel else z, thi if use_kernel else z,
-    )
+    return shard_fn(index.codes, qtables, tflat)
 
 
 def search_adc_flat_sharded(index: FlatIndex, queries, r: int = 100, mesh=None):

@@ -1,7 +1,7 @@
 """Partition-sharded IVF search over a device mesh.
 
 The Deep100M-class configuration (SURVEY §6): partitions are sharded across
-chips/hosts (each device owns P/D partitions' codes+labels), the coarse
+devices (each device owns P/D partitions' codes+labels), the coarse
 quantizer and PQ are replicated (KiB-scale), and queries are replicated.
 Per query batch:
 
@@ -10,14 +10,13 @@ Per query batch:
      pairs whose partition it OWNS; a psum assembles the global per-query
      bound (pairs partition disjointly across shards);
   3. tables quantize replicated; each shard routes its owned pairs
-     (index/routing.py) and scans them with the grouped kernel;
+     (index/routing.py) and scans them with the grouped window scan;
   4. each shard emits its local top-r (dist, label) pairs; one all_gather +
      local k-select merges — compute and memory both scale with 1/D.
 """
 
 from __future__ import annotations
 
-import dataclasses
 from functools import partial
 
 import jax
@@ -29,26 +28,21 @@ from qadc_tpu.dist.mesh import SHARD_AXIS, make_mesh
 from qadc_tpu.index.ivf import (
     IVFIndex,
     assign_queries,
+    grouped_window_minima,
     rows_adc,
     tile_tables_rows,
+    window_rerank,
 )
+from qadc_tpu.index.route import choose
 from qadc_tpu.index.routing import route_queries
-from qadc_tpu.kernels.lut_scan import (
-    build_scan_tables,
-    build_scan_tables_tq,
-    lut_scan_grouped_prefetch,
-    lut_scan_grouped_tq,
-    slots_to_rows,
-    to_planes,
-    window_slots,
-)
+from qadc_tpu.kernels.window_scan import DEFAULT_WINDOW, window_min_to_float
 from qadc_tpu.ops.quantization import (
     clamp_bound_to_max_distance,
     keep_prefix_bound,
     quantize_tables_int8,
 )
 from qadc_tpu.ops.tables import adc_tables
-from qadc_tpu.ops.topk import topk_smallest
+from qadc_tpu.ops.topk import exact_tile_screen, topk_smallest
 
 
 def shard_ivf_partitions(index: IVFIndex, mesh) -> IVFIndex:
@@ -83,21 +77,6 @@ def shard_ivf_partitions(index: IVFIndex, mesh) -> IVFIndex:
         n=index.n,
         max_part_size=index.max_part_size,
     )
-    bn0 = out.tq_block_n()
-    if bn0 is not None:
-        # tq byte-planes, sharded along the partition-column axis (partition
-        # p = columns [p*part_pad, (p+1)*part_pad), so P(None, SHARD_AXIS)
-        # slices on partition boundaries — each shard's lane slice is its
-        # own partitions' planes).
-        planes = to_planes(
-            jnp.asarray(codes).reshape(-1, 128), index.pq.code_size, bn0
-        )
-        out = dataclasses.replace(
-            out,
-            planes=jax.device_put(
-                planes, NamedSharding(mesh, P(None, SHARD_AXIS))
-            ),
-        )
     return out
 
 
@@ -155,14 +134,6 @@ def load_sharded_index(path: str, mesh) -> IVFIndex:
             NamedSharding(mesh, spec), arr, (p_pad,) + arr.shape[1:]
         )
 
-    def mk_cols(arr, spec):
-        # Axis-1-sharded assembly (planes: global (cb, p_pad*part_pad)).
-        arr = np.asarray(arr)
-        pp = local.part_pad
-        return jax.make_array_from_process_local_data(
-            NamedSharding(mesh, spec), arr, (arr.shape[0], p_pad * pp)
-        )
-
     out = IVFIndex(
         pq=local.pq,
         coarse_centroids=jnp.asarray(coarse),  # replicated
@@ -172,42 +143,28 @@ def load_sharded_index(path: str, mesh) -> IVFIndex:
         n=local.n,
         max_part_size=local.max_part_size,
     )
-    if local.planes is not None:
-        # local.planes (built by load_index_rows().with_planes()) covers this
-        # process's contiguous partitions; the global lane axis concatenates
-        # process slices in order — exactly P(None, SHARD_AXIS).
-        out = dataclasses.replace(
-            out, planes=mk_cols(local.planes, P(None, SHARD_AXIS))
-        )
     return out
 
 
 @partial(
     jax.jit,
     static_argnames=(
-        "r", "ma", "keep", "prefix_pad", "group_size", "window", "interpret",
+        "r", "ma", "keep", "prefix_pad", "group_size", "window", "scan",
         "mesh", "overlap_chunks",
     ),
 )
 def _search_impl(
     index: IVFIndex, queries, r: int, ma: int, keep: float, prefix_pad: int,
-    group_size: int, window: int, interpret: bool, mesh,
+    group_size: int, window: int, scan: str, mesh,
     overlap_chunks: int = 1,
 ):
-    import math
-
     d = mesh.shape[SHARD_AXIS]
     p_total = index.part_count
     p_loc = p_total // d
     part_pad = index.part_pad
     m = index.pq.sq_count
-    lanes = (m // 2) * 16
     q = queries.shape[0]
     qa = q * ma
-    # Same block policy as the local grouped path (index.ivf): bigger blocks
-    # = fewer grid steps (blk 1024->8192 measured ~30% on the flat kernel);
-    # gcd keeps divisibility for every PART_ALIGN multiple.
-    block_n = math.gcd(2048, part_pad)
     cb = m // 2
 
     # Replicated front: assignment + residual tables.
@@ -218,13 +175,7 @@ def _search_impl(
     qmin = jnp.min(tables_nn, axis=(-3, -2, -1))
     tflat = tables.reshape(qa, m * 16)
 
-    use_tq = (
-        index.planes is not None
-        and index.tq_block_n() == block_n
-        and block_n % (window * 128) == 0
-    )
-
-    def local_shard(codes_l, labels_l, sizes_l, planes_l, parts_g, tflat_g, maxp, qmn):
+    def local_shard(codes_l, labels_l, sizes_l, parts_g, tflat_g, maxp, qmn):
         shard_i = jax.lax.axis_index(SHARD_AXIS)
         offset = shard_i * p_loc
         parts_local = parts_g - offset                      # (Q, ma)
@@ -255,8 +206,7 @@ def _search_impl(
             jnp.arange(qa, dtype=jnp.int32)[:, None]
             .repeat(ppr, axis=1).reshape(qa * ppr)
         )
-        pd = rows_adc(rows, tlo_full[pair_of_row], thi_full[pair_of_row], cb,
-                      interpret=interpret)
+        pd = rows_adc(rows, tlo_full[pair_of_row], thi_full[pair_of_row], cb)
         pd = pd.reshape(q, ma, ppr * cpr)
         col = jnp.arange(ppr * cpr, dtype=jnp.int32)
         valid = (col[None, None, :] < starts_sizes[:, :, None]) & owned[:, :, None]
@@ -273,80 +223,41 @@ def _search_impl(
             tables_g, bound[:, None, None, None], qmn[:, None, None, None]
         )
 
-        from qadc_tpu.index.ivf import _group_nblk, window_rerank
-
         def scan_chunk(parts_c, sizes_c, qtables_c, tables_c, tiles_c):
             """Scan + rerank one query sub-chunk; returns local top-r."""
             qc = parts_c.shape[0]
             qac = qc * ma
-            # ---- route owned pairs; unowned pairs route to partition 0 with
-            # a poisoned slot masked at candidate selection.
+            # ---- route owned pairs; unowned pairs route to partition 0 and
+            # are masked below by their zeroed size.
             routed = route_queries(parts_c, p_loc, group_size)
-            gcap, g = routed.gcap, routed.group_size
-            qa_g = routed.qa_group.reshape(qac)
-            qa_s = routed.qa_slot.reshape(qac)
-            s2p = jnp.zeros((gcap * g,), jnp.int32).at[qa_g * g + qa_s].set(
-                jnp.arange(qac, dtype=jnp.int32)
-            )
-            nblk = _group_nblk(
-                sizes_l, routed.group_part, block_n, part_pad // block_n
-            )
-            # Slot-major kernel output: skips the (gcap, C, G) -> (gcap, G, C)
-            # relayout copy (see index.ivf._search_qadc_grouped_impl).
-            # group_nblk trims blocks past each partition's real size.
-            # tq (plane-major) kernel when the index carries sharded planes
-            # — identical window ids/minima, no expansion matmuls.
-            if use_tq:
-                tcat_p = build_scan_tables_tq(
-                    qtables_c.reshape(qac, m, 16), q_pad=qac
-                )
-                vals_rows = lut_scan_grouped_tq(
-                    planes_l, routed.group_part, tcat_p[s2p],
-                    rows_per_group=part_pad, cb=cb, block_n=block_n,
-                    window=window, interpret=interpret, group_nblk=nblk,
-                )
-            else:
-                tlo_p, thi_p = build_scan_tables(
-                    qtables_c.reshape(qac, m, 16), q_pad=qac
-                )
-                tlo_p, thi_p = tlo_p.T, thi_p.T
-                glo = (
-                    tlo_p[s2p].reshape(gcap, g, lanes).transpose(0, 2, 1)
-                    .reshape(gcap * lanes, g)
-                )
-                ghi = (
-                    thi_p[s2p].reshape(gcap, g, lanes).transpose(0, 2, 1)
-                    .reshape(gcap * lanes, g)
-                )
-                vals_rows = lut_scan_grouped_prefetch(
-                    codes_l.reshape(-1, 128), routed.group_part, glo, ghi,
-                    rows_per_group=part_pad, cb=cb, block_n=block_n,
-                    window=window, interpret=interpret, transpose_out=True,
-                    group_nblk=nblk,
-                )
+            cv = window_min_to_float(grouped_window_minima(
+                codes_l, sizes_l, routed, qtables_c.reshape(qac, m * 16),
+                code_size=cb, part_pad=part_pad, window=window, scan=scan,
+            ))                                              # (Qc*ma, C)
             c = part_pad // window
-            cv = vals_rows[qa_g * g + qa_s].astype(jnp.float32)
-            win_ids = jnp.arange(c, dtype=jnp.int32)
-            all_rows = slots_to_rows(
-                window_slots(win_ids, block_n, window), block_n, cb
-            )
-            szf = sizes_c.reshape(qac)
-            cv = jnp.where(
-                (jnp.min(all_rows, axis=1)[None, :] < szf[:, None]), cv, jnp.inf
-            )
+            wstart = jnp.arange(c, dtype=jnp.int32) * window
+            cv = jnp.where(wstart[None, :] < sizes_c.reshape(qac)[:, None], cv, jnp.inf)
 
             # ---- query-level window merge + whole-window exact rerank
             # (local, shared 2-D-shaped helper — index.ivf.window_rerank).
-            # wq = r matches the single-chip grouped path (containment note
-            # + measured A/B in index.ivf._search_qadc_grouped_impl); each
-            # shard returns its own top-r before the cross-shard merge.
+            # The single-device grouped path reranks the query's top wq = r
+            # windows over ALL its probes (containment note in
+            # index.ivf._search_qadc_grouped_impl). Each shard screens its
+            # own top wq by (minimum, window column), then keeps only those
+            # at or before the GLOBAL wq-th (one small all_gather): every
+            # window column belongs to one shard, so the shards together
+            # rerank exactly the windows one device reranks.
             wq = min(r, ma * c)
             cv_q = cv.reshape(qc, ma * c)
-            # EXACT window screen (see index.ivf._search_qadc_grouped_impl:
-            # the approx bf16 segment screen dropped whole clustered windows).
-            from qadc_tpu.ops.topk import exact_tile_screen
-
             screen_v, selq = exact_tile_screen(cv_q, wq)
+            all_v, all_i = jax.lax.sort(
+                (jax.lax.all_gather(screen_v, SHARD_AXIS, axis=1, tiled=True),
+                 jax.lax.all_gather(selq, SHARD_AXIS, axis=1, tiled=True)),
+                dimension=1, num_keys=2,
+            )
+            cut_v, cut_i = all_v[:, wq - 1 : wq], all_i[:, wq - 1 : wq]
+            keep = (screen_v < cut_v) | ((screen_v == cut_v) & (selq <= cut_i))
+            screen_v = jnp.where(keep, screen_v, jnp.inf)
             sel_ai = selq // c
             sel_wi = selq % c
             sel_pair = jnp.arange(qc, dtype=jnp.int32)[:, None] * ma + sel_ai
@@ -355,7 +266,7 @@ def _search_impl(
             return window_rerank(
                 codes_l.reshape(-1, 128), labels_l.reshape(-1), part_pad,
                 tables_c, screen_v, sel_part, sel_pair, sel_wi, sel_sz,
-                r, block_n, window, tiles=tiles_c, interpret=interpret,
+                r, window, tiles=tiles_c,
             )
 
         # Unowned pairs are masked by zeroing their effective size: every
@@ -364,8 +275,8 @@ def _search_impl(
 
         # SCAN <-> MERGE OVERLAP (SURVEY §5.8): process the query batch in
         # overlap_chunks sub-chunks; chunk i+1's scan has no data dependency
-        # on chunk i's all_gather, so XLA's async collectives ride ICI while
-        # the next scan computes. The final top-r merge consumes all chunks.
+        # on chunk i's all_gather, so XLA's async collectives (NCCL over
+        # NVLink) run while the next scan computes. The final top-r merge consumes all chunks.
         nchunks = overlap_chunks if q % overlap_chunks == 0 else 1
         qc = q // nchunks
         tlo_full, thi_full = tiles
@@ -392,7 +303,6 @@ def _search_impl(
         )
         return topk_smallest(all_v, all_l, r)
 
-    planes_arg = index.planes if use_tq else jnp.zeros((1, d), jnp.uint8)
     shard_fn = jax.shard_map(
         local_shard,
         mesh=mesh,
@@ -400,14 +310,13 @@ def _search_impl(
             P(SHARD_AXIS, None, None),  # codes
             P(SHARD_AXIS, None),        # labels
             P(SHARD_AXIS),              # sizes
-            P(None, SHARD_AXIS),        # planes (dummy (1, d) when unused)
             P(), P(), P(), P(),         # parts, tflat, max_possible, qmin
         ),
         out_specs=(P(), P()),
         check_vma=False,
     )
     return shard_fn(
-        index.codes, index.labels, index.part_sizes, planes_arg, parts, tflat,
+        index.codes, index.labels, index.part_sizes, parts, tflat,
         max_possible, qmin
     )
 
@@ -440,8 +349,10 @@ def search_qadc_ivf_sharded(
     prefix_pad = max(1, int(index.max_part_size * keep)) if index.max_part_size else 1
     prefix_pad = min(prefix_pad, index.part_pad)
     if window is None:
-        window = min(128 // (index.pq.sq_count // 2), 16)
+        window = min(index.cpr, DEFAULT_WINDOW)
+    scan = choose("ivf_qadc", index, grouped=True, direct=False,
+                  interpret=interpret).scan
     return _search_impl(
-        index, queries, r, ma, keep, prefix_pad, group_size, window, interpret,
+        index, queries, r, ma, keep, prefix_pad, group_size, window, scan,
         mesh, overlap_chunks,
     )

@@ -67,7 +67,7 @@ def repad_partitions(index: IVFIndex, part_pad: int) -> IVFIndex:
         part_sizes=index.part_sizes,
         n=index.n,
         max_part_size=index.max_part_size,
-    ).with_planes()
+    )
 
 
 class FlatBuilder:
@@ -106,7 +106,7 @@ class FlatBuilder:
             pq=self.pq,
             codes=jnp.asarray(to_row128(pad_codes_to_block(all_codes))),
             n=self.n,
-        ).with_planes()
+        )
 
 
 class IVFBuilder:
@@ -230,4 +230,4 @@ class IVFBuilder:
             part_sizes=jnp.asarray(self.sizes.astype(np.int32)),
             n=self.n,
             max_part_size=max_size,
-        ).with_planes()
+        )

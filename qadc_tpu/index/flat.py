@@ -3,14 +3,15 @@
 Reference: flat_db (databases.hpp:77-167) — "assignment" is the identity (the
 query is its own residual, databases.hpp:93-116), add = parallel encode into a
 growing code buffer. Codes live device-side in ROW128 storage (16 codes per
-128-byte row for 8-byte codes — core/layout.py; narrow minor dims take 16x
-TPU layout padding); add re-pads host-side (append-only); search is jitted.
+128-byte row for 8-byte codes — core/layout.py); add re-pads host-side
+(append-only); search is jitted.
 
 Search paths (reference: scanner_simple db_query.cpp:17-46, scanner_4
 db_query_4.cpp:73-310):
   - search_adc:  float ADC over all codes (any sq_bits) + exact top-r.
   - search_qadc: keep-prefix float scan -> per-query int8 bound -> QuantizerMAX
-    table quantization -> int8 LUT scan (Pallas on TPU, jnp elsewhere) -> top-r.
+    table quantization -> int8 window scan (kernels/window_scan.py on the
+    GPU, a chunked plain scan elsewhere; index.route decides) -> top-r.
 """
 
 from __future__ import annotations
@@ -20,46 +21,39 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from qadc_tpu.core.layout import DEFAULT_BLOCK, codes_per_row
 from qadc_tpu.core.packing import gather_codes_row128, row128_to_codes, unpack_codes
-from qadc_tpu.ops.topk import merge_topk, topk_smallest
-from qadc_tpu.kernels.lut_scan import (
-    DEFAULT_BLOCK_N,
-    DEFAULT_WINDOW,
-    build_scan_tables,
-    build_scan_tables_tq,
-    build_scan8_tables,
-    lut_scan_reduce,
-    lut_scan_tq,
-    lut_scan8_reduce,
-    pick_block_n,
-    pick_block_n_tq,
-    slots_to_rows,
-    to_planes,
-    window_slots,
-)
+from qadc_tpu.index import route as routes
 from qadc_tpu.kernels.scan_ref import adc_scan_f32, scan_topk_f32, scan_topk_int8
+from qadc_tpu.kernels.window_scan import (
+    DEFAULT_WINDOW,
+    window_min_scan,
+    window_min_to_float,
+)
 from qadc_tpu.ops.quantization import (
     clamp_bound_to_max_distance,
     keep_prefix_bound,
     quantize_tables_int8,
 )
 from qadc_tpu.ops.tables import adc_tables
+from qadc_tpu.ops.topk import exact_tile_screen, merge_topk, topk_smallest
 from qadc_tpu.quantizers.pq import ProductQuantizer
+
+# Widest query group one scan program serves (kernel registers bound it).
+MAX_GROUP = 128
 
 
 def _flat_range_count(n_pad: int, qp: int, window: int, budget: int) -> int:
-    """Code-axis ranges so the kernel's (Qp, range/W) window-min output fits
+    """Code-axis ranges so the scan's (Qp, range/W) window-min output fits
     the scan budget (index.ivf.SCAN_BUDGET_BYTES — the reference's
-    TABLES_BUFFER_SIZE analog). The flat kernel pads queries to Qp >= 128,
-    so at 100M codes the minima alone are 3.2 GB even at batch 1 without
-    chunking; ranges scan sequentially and merge their top-r."""
+    TABLES_BUFFER_SIZE analog). At 100M codes the minima alone are GBs even
+    at small batches without chunking; ranges scan sequentially and merge
+    their top-r."""
     nr = 1
     while (
         (n_pad // nr) // window * qp * 4 > budget
-        and (n_pad // (nr * 2)) % DEFAULT_BLOCK_N == 0
+        and (n_pad // (nr * 2)) % DEFAULT_BLOCK == 0
     ):
         nr *= 2
     return nr
@@ -67,7 +61,7 @@ def _flat_range_count(n_pad: int, qp: int, window: int, budget: int) -> int:
 
 @partial(
     jax.tree_util.register_dataclass,
-    data_fields=["pq", "codes", "planes"],
+    data_fields=["pq", "codes"],
     meta_fields=["n"],
 )
 @dataclasses.dataclass(frozen=True)
@@ -80,34 +74,11 @@ class FlatIndex:
         padded tail repeats the last code (labels clamp to n-1, reference
         quirk simd_scan.hpp:67).
       n: real (unpadded) vector count — static.
-      planes: optional (cb, N_pad) uint8 byte-planes (kernels.lut_scan
-        .to_planes at tq_block_n(n_pad)) — the tq scan kernel's storage
-        (63% of the int8-MXU formulation bound vs row128's 40%). None =
-        row128 kernel fallback; derived data, rebuilt on add/load (+cb
-        bytes/code, ~= the codes themselves; both dwarfed by raw vectors).
     """
 
     pq: ProductQuantizer
     codes: jax.Array
     n: int
-    planes: jax.Array | None = None
-
-    def tq_block_n(self) -> int | None:
-        """Planes block size for this geometry (None = tq not applicable)."""
-        cpr = self.cpr
-        window = min(cpr, DEFAULT_WINDOW)
-        if self.pq.sq_bits != 4 or window != cpr:
-            return None
-        return pick_block_n_tq(self.n_pad, window)
-
-    def with_planes(self) -> "FlatIndex":
-        """Return a copy carrying tq planes (no-op when not applicable)."""
-        bn0 = self.tq_block_n()
-        if bn0 is None:
-            return dataclasses.replace(self, planes=None)
-        return dataclasses.replace(
-            self, planes=to_planes(self.codes, self.pq.code_size, bn0)
-        )
 
     @property
     def cpr(self) -> int:
@@ -162,68 +133,47 @@ def _exact_rerank(tables, cand_codes, sq_bits: int):
     return jnp.sum(gathered, axis=-1)
 
 
-def window_search_rows(
-    codes_rows, labels_flat, size, vals, rank_tables, r, wq,
-    exact_screen, block_n, window, clamp127: bool = False,
-    interpret: bool = False,
+def window_search(
+    codes_rows, labels_flat, qtables, rank_tables, *, part, range_codes: int,
+    size, r: int, wq: int, window: int, scan: str, saturate: bool = False,
+    clamp127: bool = False,
 ):
-    """Select top windows from kernel minima, expand, rank (one code range).
+    """Window scan of one code range, exact screen, whole-window rerank.
 
-    The flat analog of the grouped IVF tail (index.ivf.window_rerank with one
-    partition): window SELECTION is always the exact tile screen — a code
-    outside the top-wq windows is beaten by wq better codes, so the expanded
-    result is the exact top-r under rank_tables (exact_screen is retained in
-    the signature for API compatibility only). Also used per-shard by
-    dist.sharded (codes_rows = the local shard, size = its valid count).
+    The flat analog of the grouped IVF path with one partition: range
+    `part` holds codes [part*range_codes, (part+1)*range_codes) of
+    codes_rows, `size` of them real. Window SELECTION is the exact tile
+    screen — a code outside the top-wq windows is beaten by wq better codes,
+    so the expanded result is the exact top-r under rank_tables. Also used
+    per shard by dist.sharded (codes_rows = the local shard).
 
     Args:
-      codes_rows: (n_pad/cpr, 128) uint8 ROW128 storage.
-      labels_flat: (n_pad,) int32 result labels.
-      size: valid code count in this range (int or scalar array).
-      vals: (Qp, C) per-window minima from the scan kernel
-        (transpose_out=True layout — per-query window rows).
+      codes_rows: (R, 128) uint8 ROW128 storage.
+      labels_flat: (R*cpr,) int32 result labels.
+      qtables: (Q, M, 16) int8 scan tables.
       rank_tables: (Q, M, 16) float tables to rank the expansion with.
+      scan: "triton" | "xla" | "interpret" (index.route).
     """
+    q, m, _ = qtables.shape
+    gq = min(MAX_GROUP, max(16, 1 << (q - 1).bit_length()))
+    gcap = -(-q // gq)
+    tabs = jnp.pad(qtables.reshape(q, m * 16), [(0, gcap * gq - q), (0, 0)])
+    vals = window_min_scan(
+        codes_rows, jnp.full((gcap,), part, jnp.int32),
+        jnp.full((gcap,), size, jnp.int32), tabs, code_size=m // 2,
+        rows_per_group=range_codes, window=window, mode=scan,
+    )
+    cv = window_min_to_float(vals[:q], saturate=saturate)   # (Q, C)
+    screen_v, sel = exact_tile_screen(cv, wq)
+    shape = (q, wq)
     from qadc_tpu.index.ivf import window_rerank
 
-    q = rank_tables.shape[0]
-    cb = rank_tables.shape[1] // 2
-    cpr = 128 // cb
-    n_pad = codes_rows.shape[0] * cpr
-    c = n_pad // window
-    vals_t = vals[:q].astype(jnp.float32)                      # (Q, C)
-    win_ids = jnp.arange(c, dtype=jnp.int32)
-    all_rows = slots_to_rows(window_slots(win_ids, block_n, window), block_n, cb)
-    has_valid = jnp.min(all_rows, axis=1)[None, :] < size
-    vals_t = jnp.where(has_valid, vals_t, jnp.inf)
-    # EXACT window screen both ways (ops.topk.exact_tile_screen): top-wq
-    # windows by true min provably contain every true top-r member's window
-    # (the rerank expands whole windows); the approx bf16 segment screen
-    # dropped whole clustered windows (round-4 diag_path_recall.py findings
-    # on the IVF twin of this path). exact_screen formerly selected the
-    # K-dominated lax.top_k; the cascade is both exact and cheaper.
-    del exact_screen
-    from qadc_tpu.ops.topk import exact_tile_screen
-
-    screen_v, sel = exact_tile_screen(vals_t, wq)
-    sel_part = jnp.zeros((q, wq), jnp.int32)
-    sel_pair = jnp.broadcast_to(jnp.arange(q, dtype=jnp.int32)[:, None], (q, wq))
-    sel_sz = jnp.broadcast_to(jnp.asarray(size, jnp.int32), (q, wq))
     return window_rerank(
-        codes_rows, labels_flat, n_pad,
-        rank_tables.reshape(q, 1, *rank_tables.shape[1:]),
-        screen_v, sel_part, sel_pair, sel, sel_sz, r, block_n, window,
-        clamp127=clamp127, interpret=interpret,
-    )
-
-
-def _flat_window_search(
-    index, vals, rank_tables, r, wq, exact_screen, block_n, window,
-    clamp127: bool = False, interpret: bool = False,
-):
-    return window_search_rows(
-        index.codes, index.labels, index.n, vals, rank_tables, r, wq,
-        exact_screen, block_n, window, clamp127=clamp127, interpret=interpret,
+        codes_rows, labels_flat, range_codes,
+        rank_tables.reshape(q, 1, m, 16), screen_v,
+        jnp.full(shape, part, jnp.int32),
+        jnp.broadcast_to(jnp.arange(q, dtype=jnp.int32)[:, None], shape),
+        sel, jnp.full(shape, size, jnp.int32), r, window, clamp127=clamp127,
     )
 
 
@@ -235,8 +185,8 @@ def decode_rows(pq: ProductQuantizer, idx):
 
     Returns:
       (..., dim) float32 reconstructions. Unlike quantizers.pq.decode (a
-      2-axis fancy gather, which lowers pathologically on TPU), this loops the
-      M sub-quantizers and does M single-axis embedding-style row gathers.
+      2-axis fancy gather), this loops the M sub-quantizers and does M
+      single-axis embedding-style row gathers.
     """
     parts = [pq.centroids[mm][idx[..., mm]] for mm in range(pq.sq_count)]
     return jnp.concatenate(parts, axis=-1)
@@ -248,8 +198,8 @@ def _search_adc_recon(index: FlatIndex, queries, r: int):
 
     The ADC distance IS the squared distance to the PQ reconstruction
     (table[m][v] = ||res_m - C_m[v]||^2, summed over m), so with K = 65536 the
-    TPU-native scan is: decode codes (M row gathers) -> one MXU GEMM against
-    the query batch -> top-r. Replaces both the 65536-entry tables (128 MB+
+    scan is: decode codes (M row gathers) -> one GEMM against the query
+    batch -> top-r. Replaces both the 65536-entry tables (128 MB+
     per query batch) and the 65536-wide one-hots of the naive formulation.
     Semantics match scan_standard<uint16_t> (query_common.hpp:92-118).
     Chunked over codes; memory is O(chunk * dim), independent of N.
@@ -314,22 +264,17 @@ def _search_adc_recon(index: FlatIndex, queries, r: int):
     return jax.lax.fori_loop(0, n_pad // chunk, body, init)
 
 
-@partial(jax.jit, static_argnames=("r", "interpret", "scan_budget_bytes"))
-def search_adc(
-    index: FlatIndex, queries, r: int = 100, interpret: bool = False,
-    scan_budget_bytes: int | None = None,
-):
-    """Conventional float ADC search.
+@partial(jax.jit, static_argnames=("r",))
+def search_adc(index: FlatIndex, queries, r: int = 100):
+    """Conventional float ADC search: exact top-r of float ADC distances.
 
-    On TPU the scan runs as a Pallas one-hot kernel (4-bit: int tables become
-    f32; 8-bit: 256-wide one-hot, scan_standard equivalent) with an exact-f32
-    gather rerank of the screened candidates; elsewhere the jnp path runs.
-    16-bit codes use the reconstruction-GEMM scan (_search_adc_recon).
+    4- and 8-bit codes: chunked one-hot x table scan at Precision.HIGHEST
+    (kernels.scan_ref.scan_topk_f32). 16-bit codes use the
+    reconstruction-GEMM scan (_search_adc_recon).
 
     Args:
       queries: (Q, dim) float32.
       r: results per query.
-      interpret: run the Pallas kernel path in interpret mode (tests on CPU).
 
     Returns:
       (dists (Q, r) float32 ascending, labels (Q, r) int32).
@@ -338,111 +283,7 @@ def search_adc(
         return _search_adc_recon(index, queries, r)
     rotated = index.pq.rotate(queries)  # flat assignment = identity residual
     tables = adc_tables(rotated, index.pq.centroids)  # (Q, M, K)
-    n_pad = index.n_pad
-    cb = index.pq.code_size
-    on_tpu = jax.default_backend() == "tpu" or interpret
-    enough = n_pad // DEFAULT_WINDOW >= 8 * r
-
-    from qadc_tpu.index.ivf import _default_scan_budget
-
-    budget = _default_scan_budget() if scan_budget_bytes is None else scan_budget_bytes
-    q = tables.shape[0]
-    qp = -(-q // 128) * 128
-
-    if on_tpu and enough and index.pq.sq_bits == 4 and index.pq.sq_count in (16, 32) \
-            and n_pad % DEFAULT_BLOCK_N == 0:
-        # Exact-screen window expansion: a code outside the top-2r windows is
-        # beaten by 2r better codes; the expansion is ranked with exact-f32
-        # rows_adc, so results are exact top-r (the kernel's bf16-pass matmul
-        # affects only which windows are selected, with a 2x margin). Ranges
-        # chunk the code axis under the scan budget; exact merges stay exact.
-        window = min(index.cpr, DEFAULT_WINDOW)
-        nr = _flat_range_count(n_pad, qp, window, budget)
-        range_codes = n_pad // nr
-        rows_pr = index.codes.shape[0] // nr
-        bn0 = index.tq_block_n()
-        use_tq = (
-            index.planes is not None
-            and bn0 is not None
-            and range_codes % bn0 == 0
-        )
-        bn = bn0 if use_tq else pick_block_n(range_codes)
-        if use_tq:
-            tcat = build_scan_tables_tq(tables).astype(jnp.float32)
-        else:
-            tlo, thi = build_scan_tables(tables)
-        labels_full = index.labels
-        best = None
-        for ri in range(nr):
-            codes_r = index.codes[ri * rows_pr : (ri + 1) * rows_pr]
-            if use_tq:
-                vals = lut_scan_tq(
-                    index.planes[:, ri * range_codes : (ri + 1) * range_codes],
-                    tcat, cb=cb, block_n=bn, window=window,
-                    acc_dtype_name="float32", interpret=interpret,
-                )
-            else:
-                vals, _ = lut_scan_reduce(
-                    codes_r, tlo.astype(jnp.float32), thi.astype(jnp.float32),
-                    cb=cb, block_n=bn, window=window, acc_dtype_name="float32",
-                    interpret=interpret, transpose_out=True,
-                )
-            # wq = r: screen minima and rerank values are the same exact f32
-            # ADC distances (containment note in ivf._search_qadc_grouped_impl).
-            wq = min(r, range_codes // window)
-            size_r = min(max(index.n - ri * range_codes, 0), range_codes)
-            dv, dl = window_search_rows(
-                codes_r,
-                labels_full[ri * range_codes : (ri + 1) * range_codes],
-                size_r, vals, tables, r, wq, True, bn, window,
-                interpret=interpret,
-            )
-            best = (dv, dl) if best is None else merge_topk(*best, dv, dl, r)
-        return best
-    if on_tpu and enough and index.pq.sq_bits == 8 and n_pad % 256 == 0 \
-            and 128 % cb == 0:
-        t8 = build_scan8_tables(tables)
-        # Two output streams (vals + rows): halve the per-range budget share.
-        nr = _flat_range_count(n_pad, qp, DEFAULT_WINDOW, budget // 2)
-        range_codes = n_pad // nr
-        rows_pr = index.codes.shape[0] // nr
-        best = None
-        for ri in range(nr):
-            codes_r = index.codes[ri * rows_pr : (ri + 1) * rows_pr]
-            vals, rows = lut_scan8_reduce(
-                codes_r, t8, m=index.pq.sq_count, interpret=interpret,
-                transpose_out=True,
-            )
-            rows = rows + ri * range_codes                # global row ids
-            vals = jnp.where(rows < index.n, vals.astype(jnp.float32), jnp.inf)
-            vals_t = vals[:q]
-            # EXACT window screen + whole-window expansion (the round-4
-            # recall-integrity contract, see the IVF 8-bit twin): ranking
-            # only per-window argmins lost co-window top-r members on
-            # clustered data. wq >= r suffices under an exact screen; the
-            # margin absorbs the kernel's bf16-table rounding of minima.
-            from qadc_tpu.ops.topk import exact_tile_screen
-
-            ww = min(r + max(16, r // 8), vals_t.shape[1])
-            screen_v, sel = exact_tile_screen(vals_t, ww)  # (Q, ww) windows
-            members = slots_to_rows(
-                window_slots(sel, 256, DEFAULT_WINDOW), 256, cb
-            ) + ri * range_codes                           # (Q, ww, W) rows
-            ok = (members < index.n) & jnp.isfinite(screen_v)[..., None]
-            members = jnp.minimum(members, index.n - 1)
-            cand = members.reshape(q, ww * DEFAULT_WINDOW)
-            cand_codes = gather_codes_row128(index.codes, cand, cb)
-            fd = _exact_rerank(tables, cand_codes, index.pq.sq_bits)
-            fd = jnp.where(ok.reshape(q, -1), fd, jnp.inf)
-            lab = index.labels[cand]
-            rr = cand.shape[1]
-            if rr < r:
-                fd = jnp.pad(fd, [(0, 0), (0, r - rr)], constant_values=jnp.inf)
-                lab = jnp.pad(lab, [(0, 0), (0, r - rr)])
-            dv, dl = topk_smallest(fd, lab, r)
-            best = (dv, dl) if best is None else merge_topk(*best, dv, dl, r)
-        return best
-    packed = row128_to_codes(index.codes, cb)
+    packed = row128_to_codes(index.codes, index.pq.code_size)
     return scan_topk_f32(
         packed, index.labels, tables, index.pq.sq_bits, r,
         num_valid=index.n,
@@ -454,12 +295,6 @@ def _prefix_size(n: int, keep: float) -> int:
     return max(1, int(n * keep))
 
 
-@partial(
-    jax.jit,
-    static_argnames=(
-        "r", "keep", "rerank", "interpret", "saturate", "scan_budget_bytes"
-    ),
-)
 def search_qadc(
     index: FlatIndex, queries, r: int = 100, keep: float = 0.01,
     rerank: bool = True, interpret: bool = False, saturate: bool = False,
@@ -475,7 +310,9 @@ def search_qadc(
       per-entry int8 truncation loses. Costs one tiny gather+matmul per batch.
     saturate: reproduce the reference's saturating int8 accumulation exactly
       (simd_scan.hpp:161): entries are >= 0, so min(sum, 127) equals the
-      sequential saturated sum — valid through the kernel's window-min too.
+      sequential saturated sum — valid through the window-min too.
+    interpret: take the GPU's window route with the scan kernel run in the
+      Pallas interpreter (CPU tests only; raises on an accelerator).
 
     Returns:
       (dists (Q, r) float32, labels (Q, r) int32). Distances are float ADC
@@ -483,6 +320,25 @@ def search_qadc(
     """
     if index.pq.sq_bits != 4:
         raise ValueError("Quick ADC requires sq_bits == 4")
+    route = routes.choose(
+        "flat_qadc", index, r=r, rerank=rerank, interpret=interpret
+    )
+    return _search_qadc_impl(
+        index, queries, r, keep, rerank, saturate, scan_budget_bytes,
+        route.path, route.scan,
+    )
+
+
+@partial(
+    jax.jit,
+    static_argnames=(
+        "r", "keep", "rerank", "saturate", "scan_budget_bytes", "path", "scan"
+    ),
+)
+def _search_qadc_impl(
+    index: FlatIndex, queries, r: int, keep: float, rerank: bool,
+    saturate: bool, scan_budget_bytes: int | None, path: str, scan: str,
+):
     rotated = index.pq.rotate(queries)
     tables = adc_tables(rotated, index.pq.centroids)  # (Q, M, 16)
     cb = index.pq.code_size
@@ -505,74 +361,35 @@ def search_qadc(
         tables, bound[:, None, None], qmin[:, None, None]
     )
 
-    # The Pallas LUT-scan kernel runs when its geometry fits and the candidate
-    # pool after window reduction is comfortably larger than r; small indexes
-    # use the jnp path (already fast at that size).
-    use_kernel = (
-        (jax.default_backend() == "tpu" or interpret)
-        and index.pq.sq_count in (16, 32)
-        and n_pad % DEFAULT_BLOCK_N == 0
-        and n_pad // DEFAULT_WINDOW >= 8 * r
-    )
-
-    if use_kernel:
-        # Window-expansion tail (see _flat_window_search): int8 kernel window
-        # minima select windows; every code of a winning window is ranked.
-        # rerank=True ranks with exact f32 tables (recall recovery); False
-        # ranks with the quantized tables — EXACT reference-style top-r by
-        # quantized distance (top-r windows by min provably contain it).
-        # Ranges chunk the code axis when the window-min output would bust
-        # the scan budget (per-range exact merges stay exact).
+    if path == "window":
+        # Window minima select windows; every code of a winning window is
+        # ranked. rerank=True ranks with exact f32 tables (recall recovery);
+        # False ranks with the quantized tables — EXACT reference-style
+        # top-r by quantized distance (top-r windows by min provably contain
+        # it). Ranges chunk the code axis when the window-min output would
+        # bust the scan budget (per-range exact merges stay exact).
         from qadc_tpu.index.ivf import _default_scan_budget
 
         window = min(cpr, DEFAULT_WINDOW)
-        qp = -(-tables.shape[0] // 128) * 128
+        qp = -(-tables.shape[0] // MAX_GROUP) * MAX_GROUP
         budget = (
             _default_scan_budget() if scan_budget_bytes is None else scan_budget_bytes
         )
         nr = _flat_range_count(n_pad, qp, window, budget)
         range_codes = n_pad // nr
-        rows_pr = index.codes.shape[0] // nr
-        # tq (plane-major) kernel when the index carries planes and the
-        # range chunking aligns with their baked-in block size; identical
-        # window ids/minima, ~1.6x the scan rate (kernels/lut_scan.py).
-        bn0 = index.tq_block_n()
-        use_tq = (
-            index.planes is not None
-            and bn0 is not None
-            and range_codes % bn0 == 0
-        )
-        bn = bn0 if use_tq else pick_block_n(range_codes)
-        if use_tq:
-            tcat = build_scan_tables_tq(qtables)
-        else:
-            tlo, thi = build_scan_tables(qtables)
         rank_tables = tables if rerank else qtables.astype(jnp.float32)
-        labels_full = index.labels
+        # wq = r suffices under the exact screen when the screen and rank
+        # metrics agree (no rerank); with rerank the int8 screen is only an
+        # estimate of the float ranking, so keep 2r windows.
+        wq = min((2 if rerank else 1) * r, range_codes // window)
         best = None
         for ri in range(nr):
-            codes_r = index.codes[ri * rows_pr : (ri + 1) * rows_pr]
-            if use_tq:
-                vals = lut_scan_tq(
-                    index.planes[:, ri * range_codes : (ri + 1) * range_codes],
-                    tcat, cb=cb, block_n=bn, window=window,
-                    interpret=interpret,
-                )
-            else:
-                vals, _ = lut_scan_reduce(
-                    codes_r, tlo, thi, cb=cb, block_n=bn, window=window,
-                    interpret=interpret, transpose_out=True,
-                )
-            if saturate:
-                # Entries >= 0: window-min of saturating sums == min(min, 127).
-                vals = jnp.minimum(vals, 127)
-            wq = min((2 if rerank else 1) * r, range_codes // window)
-            size_r = min(max(index.n - ri * range_codes, 0), range_codes)
-            dv, dl = window_search_rows(
-                codes_r,
-                labels_full[ri * range_codes : (ri + 1) * range_codes],
-                size_r, vals, rank_tables, r, wq, not rerank, bn, window,
-                clamp127=saturate and not rerank, interpret=interpret,
+            dv, dl = window_search(
+                index.codes, index.labels, qtables, rank_tables, part=ri,
+                range_codes=range_codes,
+                size=min(max(index.n - ri * range_codes, 0), range_codes),
+                r=r, wq=wq, window=window, scan=scan,
+                saturate=saturate, clamp127=saturate and not rerank,
             )
             best = (dv, dl) if best is None else merge_topk(*best, dv, dl, r)
         return best

@@ -143,7 +143,7 @@ def load_index_shard(path: str, shard_id: int):
             part_sizes=jnp.asarray(arr["part_sizes"]),
             n=int(manifest["n"]),
             max_part_size=int(manifest["max_part_size"]),
-        ).with_planes(),
+        ),
         manifest,
     )
 
@@ -206,7 +206,7 @@ def load_index_rows(path: str, lo: int, hi: int):
             part_sizes=jnp.asarray(sizes),
             n=int(manifest["n"]),
             max_part_size=int(manifest["max_part_size"]),
-        ).with_planes(),
+        ),
         manifest,
     )
 
@@ -220,10 +220,9 @@ def load_index(path: str):
     arrays = np.load(os.path.join(path, "arrays.npz"))
     pq = _pq_from(arrays, manifest["pq"], "pq_")
     if manifest["type"] == "flat":
-        # planes are derived storage (not serialized): rebuild on load.
         return FlatIndex(
             pq=pq, codes=jnp.asarray(arrays["codes"]), n=int(manifest["n"])
-        ).with_planes()
+        )
     if manifest["type"] == "ivf":
         return IVFIndex(
             pq=pq,

@@ -1,8 +1,8 @@
 """Pure-jnp reference ADC scans (all bit widths, float and int8).
 
-These are the semantic oracles for the Pallas kernels and the fallback compute
-path on CPU. They use the same one-hot × table matmul formulation as the
-Pallas kernel (see ARCHITECTURE.md), so parity tests compare like with like:
+These are the semantic oracles for the scan kernel (kernels/window_scan.py)
+and the plain compute path. They use the same one-hot × table product
+formulation as the kernel, so parity tests compare like with like:
 
   distances[Q, B] = tables[Q, M*K] @ OneHot(codes)[B, M*K]^T
 
@@ -44,7 +44,8 @@ def adc_scan_f32(codes_packed, tables, sq_bits: int):
     q, m, k = tables.shape
     oh = _one_hot_flat(codes_packed, m, sq_bits, jnp.float32)  # (B, M*K)
     t = tables.reshape(q, m * k)
-    return jnp.dot(t, oh.T, preferred_element_type=jnp.float32)
+    return jnp.dot(t, oh.T, preferred_element_type=jnp.float32,
+                   precision=jax.lax.Precision.HIGHEST)
 
 
 def adc_scan_int8(codes_packed, qtables, saturate: bool = True):
@@ -55,8 +56,8 @@ def adc_scan_int8(codes_packed, qtables, saturate: bool = True):
       qtables: (Q, M, 16) int8 quantized tables (entries in [0, 127]).
       saturate: clamp sums at 127, reproducing the reference's saturating int8
         adds (simd_scan.hpp:161) exactly. The index search paths pass False:
-        the MXU accumulates in int32 for free, and the unsaturated sum is
-        strictly more informative (the 127 cap is an AVX artifact).
+        int32 accumulation is free in a matrix product, and the unsaturated
+        sum is strictly more informative (the 127 cap is an AVX artifact).
 
     Returns:
       (Q, B) int32 distances (in [0, 127] when saturate).

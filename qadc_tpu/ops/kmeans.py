@@ -3,8 +3,11 @@
 Reference: learn_coarse_quantizer (databases.cpp:94-118) — OpenCV kmeans++
 init (2 iterations) then 48 custom Lloyd iterations with OpenMP-parallel
 assignment (databases.cpp:50-90). Here both phases are jitted JAX: assignment
-is a GEMM+argmax on the MXU, the update is a segment-sum, and k-means++ is a
-lax.scan over D^2-weighted draws with explicit PRNG keys.
+is a GEMM+argmax, the update is a segment-sum, and k-means++ is a lax.scan
+over D^2-weighted draws with explicit PRNG keys. Distance products run at
+Precision.HIGHEST: ||x||^2 - 2 x.c + ||c||^2 cancels, and TF32's ten-bit
+mantissa would perturb assignments; training is offline, so the cost is
+not on the search path.
 
 The reference divides by zero on empty clusters (databases.cpp:83-88); here
 empty clusters keep their previous centroid.
@@ -42,7 +45,8 @@ def kmeans_plusplus_init(key, x, k: int):
     x2 = jnp.sum(x * x, axis=-1)
 
     def sqdist_to(c):
-        return jnp.maximum(x2 - 2.0 * x @ c + jnp.sum(c * c), 0.0)
+        xc = jnp.dot(x, c, precision=jax.lax.Precision.HIGHEST)
+        return jnp.maximum(x2 - 2.0 * xc + jnp.sum(c * c), 0.0)
 
     def step(carry, key_i):
         min_d2 = carry
@@ -156,11 +160,10 @@ def balance_centroids(key, x, centroids, cap_ratio: float = 3.0,
                       split_sample: int = 8192):
     """Bound the largest cell at cap_ratio x the mean, keeping K fixed.
 
-    TPU static shapes pad every IVF partition to the LARGEST one
-    (index/build.py finalize), so one mega-cell inflates storage, kernel
-    output width, and screen cost for the whole index — measured 23x
-    padding and a 13x QPS collapse at 1M on the clustered SIFT-moment
-    generator (max cell 91k vs mean 3.9k; round-5 RESULTS). The reference
+    Static shapes pad every IVF partition to the LARGEST one
+    (index/build.py finalize), so one mega-cell inflates storage, scan
+    output width, and screen cost for the whole index (the clustered
+    SIFT-moment generator at 1M makes cells of 20x the mean). The reference
     never faces this (variable-length partition vectors, databases.hpp:
     176-331); bounding cell size at BUILD time is the static-shape answer,
     and finer cells where data is dense also helps recall.

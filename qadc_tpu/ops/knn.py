@@ -1,9 +1,9 @@
 """Exact batched k-NN.
 
 Reference: find_k_neighbors (neighbors.cpp:30-76) — 256x256 BLAS tiles pushed
-into per-vector binheaps. On TPU this is one GEMM for the -2*q.b cross terms
-plus ||b||^2, followed by lax.top_k; XLA tiles the GEMM onto the MXU itself so
-the manual blocking disappears. Used for PQ encoding (k=1 per sub-space),
+into per-vector binheaps. Here this is one GEMM for the -2*q.b cross terms
+plus ||b||^2 (Precision.HIGHEST), followed by lax.top_k; XLA tiles the GEMM
+itself so the manual blocking disappears. Used for PQ encoding (k=1 per sub-space),
 coarse assignment (k=ma), and k-means assignment.
 """
 

@@ -13,7 +13,7 @@ from the keep-prefix exact scan: the R-th smallest value of {+inf} ∪ {float AD
 distances of the first max(1, size*keep) codes of each probed partition}
 (db_query_4.cpp:230-259, heap seeded with one +inf at :232).
 
-The reference uses the bound to prune its scan; on TPU all distances are
+The reference uses the bound to prune its scan; here all distances are
 computed anyway, so the bound's role is precision: distances at or beyond qmax
 saturate to 127 and can never enter the top-R unless the heap is short.
 """

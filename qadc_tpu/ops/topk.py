@@ -1,11 +1,10 @@
 """Data-parallel top-k building blocks.
 
 The reference's bound-pruned binheap (binheap.hpp:75-116) is inherently serial;
-on TPU top-k becomes: (1) an optional windowed min-reduction that shrinks N
-candidates to N/W per query with negligible recall loss (two of the true top-R
-must collide in one window to lose one — probability ≈ R^2*W/(2N)), then
-(2) an exact lax.top_k over the survivors, and for sharded scans (3) a merge of
-per-shard (value, label) pairs.
+here top-k becomes: (1) a windowed min-reduction that shrinks N candidates to
+N/W per query, (2) an exact screen of the window minima whose winners are
+expanded and ranked exactly, and for sharded scans (3) a merge of per-shard
+(value, label) pairs.
 """
 
 from __future__ import annotations
@@ -37,71 +36,17 @@ def window_min_reduce(dists, window: int, base_index: int = 0):
     return vals, arg + row_base
 
 
-def bf16_screen(vals):
-    """Cast screen inputs to bf16 on TPU (halves approx_min_k's input
-    bytes); downstream uses of screened VALUES are limited to isfinite
-    dead-slot masks, and exact reranks absorb selection-boundary swaps.
-
-    Centralized so the pending hardware recall A/B (round-2 STATUS) is one
-    switch: QADC_BF16_SCREEN=0 disables it everywhere. Off-TPU the screen is
-    an exact top_k and stays f32 (bit-exact against oracles).
-    """
-    import os
-
-    if jax.default_backend() == "tpu" and os.environ.get(
-        "QADC_BF16_SCREEN", "1"
-    ) != "0":
-        return vals.astype(jnp.bfloat16)
-    return vals
-
-
-def screen_smallest(vals, k: int, recall_target: float = 0.95):
-    """Approximate k-smallest screening along the last axis.
-
-    On TPU the reduction is jax.lax.approx_min_k — the PartialReduce
-    primitive from "TPU-KNN: K Nearest Neighbor Search at Peak FLOP/s" —
-    measured ~9x faster than exact lax.top_k at (128, 65536), k=200. The
-    aggregation over the (.., L) segment minima is the sort cascade instead
-    of approx_min_k's built-in top_k (aggregate_to_topk pays the K-dominated
-    TopK custom call: 51.3 -> 34.0 us at (1, 196608) k=200 on v5e,
-    benchmarks/ab_b1.py); selection and tie order are identical — both are
-    exact top-k over the same reduced set. Use for candidate SCREENING
-    feeding an exact rerank (the rerank absorbs the reduction's ~1% deep-rank
-    misses); use topk_smallest for final results. Falls back to exact top_k
-    off-TPU.
-
-    Returns (vals (..., k) f32 ascending, idx (..., k)).
-    """
-    if jax.default_backend() == "tpu":
-        rv, ri = jax.lax.approx_min_k(
-            vals, k, recall_target=recall_target, aggregate_to_topk=False
-        )
-        sv, si = exact_screen_smallest(rv, k)
-        return sv, jnp.take_along_axis(ri, si, axis=-1)
-    neg, idx = jax.lax.top_k(-vals.astype(jnp.float32), k)
-    return -neg, idx
-
-
-# Rows at or below this width go through a full stable sort instead of the
-# TopK custom call. The custom call's cost is K-dominated (measured, v5e:
-# (1, 98304) k=100 takes 68 us; k=200 over 8x fewer elements takes 88 us), so
-# for a 200-wide row a sorting network over the whole row beats paying the
-# k=100 fixed cost — this is the tail of the b=1 direct path. Ties break by
-# position (stable sort), matching lax.top_k's lower-index-first order.
+# Rows at or below this width go through a full stable sort instead of
+# lax.top_k. Ties break by position (stable sort), matching lax.top_k's
+# lower-index-first order. Untuned on the H100 (ROADMAP).
 SORT_TOPK_MAX_C = 1024
 
 
 def topk_smallest(dists, labels, k: int):
     """Top-k smallest along the LAST axis, carrying labels. Exact.
 
-    Performance note (measured, v5e): the TPU TopK custom call's cost scales
-    with K far more than with row length — (1, 98304) k=100 takes 68 us while
-    k=200 over 8x fewer elements takes 88 us — and splitting a wide row into
-    S parallel chunks of top-k makes it WORSE (each chunk pays the full
-    K-cost; full-sort lowering for the merge). Keep exact top-k rows intact,
-    and keep K small; screen with screen_smallest when approximation is
-    acceptable. Tiny rows (C <= SORT_TOPK_MAX_C) dodge the custom call
-    entirely via a stable variadic sort.
+    Rows of at most SORT_TOPK_MAX_C elements go through a stable variadic
+    sort, wider rows through lax.top_k.
 
     Args:
       dists: (..., C) distances.
@@ -125,21 +70,15 @@ def topk_smallest(dists, labels, k: int):
 def exact_screen_smallest(vals, k: int, idx=None):
     """EXACT k-smallest + argmin indices along the last axis, sort-cascade.
 
-    jax.lax.approx_min_k is a per-segment min reduction: it never loses the
-    global minimum, but at (Q, 25k-200k) widths it captures only ~99% of the
-    true top-100 (measured on v5e, benchmarks/diag_direct.py) — fine for a
-    screened+reranked pipeline, a contract violation for the direct path's
-    exact ranking. This keeps the per-chunk top-k via stable variadic sorts
-    (rows <= SORT_TOPK_MAX_C, where a sort beats the K-dominated TopK custom
-    call — see topk_smallest) and recurses on the per-chunk survivors: exact
-    because a global top-k member is a top-k member of its chunk. Ties break
-    by lower index (stable sorts over index-ordered chunks), matching
+    Keeps the per-chunk top-k via stable variadic sorts (chunks of
+    SORT_TOPK_MAX_C) and recurses on the per-chunk survivors: exact because
+    a global top-k member is a top-k member of its chunk. Ties break by
+    lower index (stable sorts over index-ordered chunks), matching
     lax.top_k.
 
     idx: optional (..., C) int32 CUSTOM payload returned in place of the
     positional indices (the cascade carries one int32 payload either way, so
-    a caller-supplied column id rides free — a post-sort take_along_axis
-    element gather is ~us-scale on TPU, benchmarks/profile_b1.py).
+    a caller-supplied column id rides free of a post-sort gather).
 
     Returns (vals (..., k) ascending, idx (..., k) int32).
     """
@@ -174,11 +113,8 @@ def exact_screen_smallest(vals, k: int, idx=None):
 def _screen_topk_enabled() -> bool:
     """A/B switch: run exact_tile_screen's two exact selections through
     lax.top_k instead of the sort cascade. Read at TRACE time (A/B harnesses
-    must jax.clear_caches() between flips). Default OFF: top_k microbenches
-    on the v5e are BIMODAL — the same (1, 3072) k=100 call measures either
-    ~2 us or ~85 us across identical fori-chain runs (2026-08-20, 3-run
-    stability check) — so the e2e number under this flag decides, not the
-    primitive's microbench.
+    must jax.clear_caches() between flips). Default OFF; which is faster on
+    the H100 is not measured (ROADMAP).
     """
     import os
 
@@ -189,24 +125,18 @@ def exact_tile_screen(vals, k: int, tile: int = 32, mins=None):
     """EXACT k-smallest + indices along the last axis, via tile minima.
 
     Same contract as exact_screen_smallest, at a fraction of the sort
-    volume: reduce the row to N/tile tile-minima (one cheap VPU reduce),
+    volume: reduce the row to N/tile tile-minima (one cheap reduce),
     exactly screen THOSE, row-gather the winning tiles' members (contiguous
     tile-f32 slices — near-bandwidth, unlike element gathers), and exactly
-    screen the k*tile members. Containment is provable: a true top-k
-    element's tile min <= its value, so if its tile missed the top-k tile
-    cut, k tiles with smaller minima would hold k smaller elements —
-    contradiction. Ties at the tile boundary resolve by (tile, position)
-    stable order: a valid top-k by value (tie ORDER may differ from
-    lax.top_k when equal values straddle the cut).
+    screen the k*tile members. The result is the top-k by (value, column):
+    ties resolve to the lower column, as lax.top_k resolves them.
+    Containment is provable: if a top-k element's tile missed the tile cut,
+    k tiles precede it by (tile min, tile id), and each holds an element
+    that precedes it by (value, column) — contradiction.
 
-    mins: optional (..., w // tile) PRECOMPUTED tile minima (the Pallas
-    scan emits them in native layout — kernels.rows_adc_grouped_prefetch's
-    tile_min); skips the min-reduce over (and relayout of) the full row.
-    Must equal jnp.min over each contiguous tile; w % tile must be 0.
-
-    Measured on the b=1 direct path (width 98304, k=200, v5e): 24 us vs
-    56 us for the full per-chunk cascade and 22 us for the approx
-    segment-min screen whose capture was data-dependent (0.85-1.00).
+    mins: optional (..., w // tile) PRECOMPUTED tile minima; skips the
+    min-reduce over the full row. Must equal jnp.min over each contiguous
+    tile; w % tile must be 0.
     """
     w = vals.shape[-1]
     if w <= max(4 * tile, k * 2 * tile, SORT_TOPK_MAX_C) and mins is None:
@@ -245,10 +175,14 @@ def exact_tile_screen(vals, k: int, tile: int = 32, mins=None):
     else:
         inner = exact_tile_screen if ntiles > 16384 else exact_screen_smallest
         _, ti = inner(mins, kt)                            # exact tile cut
+        # Ascending tile ids put the members in column order, so the stable
+        # cascade breaks value ties by lower column: the result is the
+        # top-k by (value, column), independent of how the row is tiled.
+        ti = jnp.sort(ti, axis=-1)
         cand = jnp.take_along_axis(dm, ti[..., None], axis=1)  # (Q, kt, tile)
         # Members carry their GLOBAL column as the sort payload — no
-        # post-sort take_along_axis element gather (those are per-element
-        # expensive on TPU; the cascade carries one int32 payload either way).
+        # post-sort take_along_axis gather (the cascade carries one int32
+        # payload either way).
         cidx = ti[..., None] * tile + jnp.arange(tile, dtype=jnp.int32)
         sv, idx = exact_screen_smallest(
             cand.reshape(q, kt * tile), min(k, kt * tile),

@@ -34,13 +34,15 @@ def isolated_cache(tmp_path, monkeypatch):
 
 
 def test_bundled_defaults_load_under_user_cache():
-    """The package ships measured v5e picks (autotune_defaults.json); they
-    load after the user cache (user entries win) and never shadow other
-    backends' keys (bundled keys are tpu|-prefixed; tests run cpu|)."""
-    key = "tpu|ivf_qadc_grouped|m16x4|d128|pp4096|parts256|b32"
-    pick = autotune.lookup(key)
-    assert pick == {"block_n": 2048, "grouped_window": 8}
-    # User cache wins over the bundled entry.
+    """The package ships a bundled picks file (autotune_defaults.json, empty
+    until picks are measured on the supported device); it loads after the
+    user cache, so user entries win, and keys name the device kind."""
+    with open(autotune._bundled_defaults_path()) as f:
+        bundled = json.load(f)
+    assert isinstance(bundled, dict)
+    key = "NVIDIA H100 80GB HBM3|ivf_qadc_grouped|m16x4|d128|pp4096|parts256|b32"
+    assert autotune.lookup(key) == bundled.get(key, {})
+    # User cache wins over any bundled entry.
     autotune.record(key, {"block_n": 1024, "grouped_window": 16})
     autotune._mem.clear()
     autotune._disk_loaded = False
@@ -52,8 +54,8 @@ def test_batch_bucket():
     assert autotune.batch_bucket(5) == 8
     assert autotune.batch_bucket(128) == 128
     assert autotune.batch_bucket(512) == 512
-    # 512 and 2048 are separate buckets: the Deep100M b=512 winner is 5.6x
-    # worse at b=2048 (governor chunking) — one pick must not cover both.
+    # 512 and 2048 are separate buckets: a large-batch pick can differ
+    # (governor chunking) — one pick must not cover both.
     assert autotune.batch_bucket(1000) == 2048
     assert autotune.batch_bucket(4096) == 2048
 
@@ -122,7 +124,7 @@ def test_tune_records_a_pick_interpret(built):
     index, queries = built
     pick = autotune.tune_ivf_qadc(
         index, queries, r=20, ma=4, keep=0.05, interpret=True,
-        block_candidates=(512, 1024), k_lo=2, k_hi=4,
+        block_candidates=(512, 1024), iters=2,
     )
     assert pick.get("block_n") in (512, 1024)
     assert pick.get("grouped_window") >= 1

@@ -59,20 +59,26 @@ def test_flat_opq_search(rng):
 
 
 def test_flat_window_search_adc_parity(rng):
-    """TPU window-expansion ADC path (interpret mode) == jnp oracle path.
+    """search_adc returns the EXACT top-r of float ADC distances.
 
-    search_adc's kernel path claims EXACT top-r (window screening with full
-    expansion); the jnp path (interpret=False on CPU) is the exact oracle.
+    Oracle: numpy table gathers over every code. Tolerance 1e-4: float32
+    sums of 16 table entries in another order.
     """
+    from qadc_tpu.core.packing import row128_to_codes, unpack_codes
+    from qadc_tpu.ops.tables import adc_tables
+
     base, queries, gt = _synthetic(rng)
     pq = train_pq(jax.random.PRNGKey(0), base, sq_count=16, sq_bits=4, iters=10)
     index = flat.add(flat.FlatIndex.create(pq), base)
     r = 10
-    d_k, l_k = flat.search_adc(index, queries, r=r, interpret=True)
-    d_o, l_o = flat.search_adc(index, queries, r=r, interpret=False)
-    np.testing.assert_allclose(np.asarray(d_k), np.asarray(d_o), rtol=1e-4, atol=1e-4)
+    d_k, l_k = flat.search_adc(index, queries, r=r)
+    tables = np.asarray(adc_tables(pq.rotate(queries), pq.centroids))
+    idx = np.asarray(unpack_codes(row128_to_codes(index.codes, 8), 16, 4))[: index.n]
+    full = tables[:, np.arange(16)[None, :], idx].sum(-1)      # (Q, n)
+    d_o = np.sort(full, axis=1)[:, :r]
+    np.testing.assert_allclose(np.asarray(d_k), d_o, rtol=1e-4, atol=1e-4)
     # Labels may swap only within fp-tie groups.
-    for a, b in zip(np.asarray(l_k), np.asarray(l_o)):
+    for a, b in zip(np.asarray(l_k), np.argsort(full, axis=1, kind="stable")[:, :r]):
         assert len(set(a) & set(b)) >= r - 1, (a, b)
 
 
@@ -151,8 +157,8 @@ def test_flat_scan_budget_ranges_identical(rng):
                               rerank=False, scan_budget_bytes=1 << 16)
     np.testing.assert_array_equal(np.asarray(d1), np.asarray(d2))
 
-    d3, l3 = flat.search_adc(index, queries, r=20, interpret=True)
-    d4, l4 = flat.search_adc(index, queries, r=20, interpret=True,
-                             scan_budget_bytes=1 << 16)
+    d3, l3 = flat.search_qadc(index, queries, r=20, keep=0.05, interpret=True)
+    d4, l4 = flat.search_qadc(index, queries, r=20, keep=0.05, interpret=True,
+                              scan_budget_bytes=1 << 16)
     np.testing.assert_allclose(np.asarray(d3), np.asarray(d4), rtol=1e-6)
     np.testing.assert_array_equal(np.asarray(l3), np.asarray(l4))

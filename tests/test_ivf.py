@@ -123,10 +123,10 @@ def test_ivf_incremental_add_matches_bulk(rng):
 def test_ivf_direct_small_batch_path(rng):
     """Direct (b-small low-latency) path: exact float ADC over probed parts.
 
-    On CPU screen_smallest is exact, so direct results must EQUAL search_adc
-    (same probed partitions, exact distances, exact selection). The
-    interpret=True run additionally exercises the scalar-prefetch Pallas
-    kernel (rows_adc_grouped_prefetch) used on TPU.
+    The direct screen is exact, so direct results must EQUAL search_adc
+    (same probed partitions, exact distances, exact selection), whether the
+    route is asked for explicitly or taken as the GPU default
+    (interpret=True).
     """
     index, _, queries, gt = _build_ivf(rng)
     d_ref, l_ref = ivf.search_adc(index, queries, r=50, ma=4)
@@ -176,7 +176,7 @@ def test_ivf_direct_labels_multiquery(rng):
 
 def test_ivf_direct_auto_gate(rng, monkeypatch):
     """direct=False must never route to the direct impl; interpret=True with
-    small probed volume must (the TPU auto-gate's selection arm)."""
+    small probed volume must (the GPU default route's selection arm)."""
     import qadc_tpu.index.ivf as ivf_mod
 
     index, _, queries, _ = _build_ivf(rng)
@@ -234,7 +234,7 @@ def test_ivf_ma_exceeds_part_count(rng):
 def test_ivf_direct_m32_geometry(rng):
     """Direct path at GIST geometry (M=32, cb=16 -> two 128-lane table
     halves in the compact rows_adc kernel) must equal search_adc exactly —
-    the M=32 configs historically hit Mosaic layout corner cases."""
+    the M=32 configs exercise the 16-byte code layout."""
     dim, n, p = 64, 6000, 8
     centers = rng.normal(scale=3.0, size=(p, dim)).astype(np.float32)
     base = (centers[rng.integers(0, p, n)]

@@ -1,4 +1,5 @@
-"""Grouped (Pallas) IVF search vs the jnp reference path (interpret mode)."""
+"""Grouped IVF search (window scan kernel interpreted, or plain XLA) vs the
+per-assignment reference path."""
 
 import numpy as np
 import jax
@@ -231,8 +232,7 @@ def test_governor_budgets_rerank_tail(built):
     geo = dict(
         ma=6, part_count=index.part_count, part_pad=index.part_pad,
         window=min(128 // (index.pq.sq_count // 2), 16), group_size=128,
-        lanes=(index.pq.sq_count // 2) * 16, val_bytes=4, slab_bytes=1,
-        n_streams=1,
+        lanes=index.pq.sq_count * 16, slab_bytes=1,
     )
     q = len(queries)
     scan_only = _grouped_scan_bytes(q, **geo)
@@ -260,31 +260,23 @@ def test_governor_budgets_rerank_tail(built):
 
 
 def test_grouped_tq_matches_row128(built):
-    """tq (plane-major) grouped kernel == row128 grouped kernel, bit-exact:
-    identical window ids/minima by the to_planes contract, so the whole
-    search must return identical results. Covers int8 Quick-ADC and f32
-    conventional ADC, with ragged-partition trimming in play."""
-    import dataclasses
-
+    """Scan kernel (interpreted) == plain-XLA scan on the grouped route,
+    bit-exact: the integer window minima are identical, so the whole search
+    returns identical results, with ragged-partition block skipping in play
+    (part_pad a multiple of the kernel block)."""
     from qadc_tpu.index.build import repad_partitions
 
     index, queries, gt = built
-    # Force a tq-legal geometry (part_pad % 2048 == 0 -> block_n 2048).
     pad = -(-index.part_pad // 2048) * 2048
     ix = repad_partitions(index, pad)
-    assert ix.planes is not None and ix.tq_block_n() == 2048
-    ix0 = dataclasses.replace(ix, planes=None)
-
-    d1, l1 = ivf.search_qadc(
-        ix, queries, r=100, ma=6, keep=0.05, grouped=True, interpret=True
-    )
-    d0, l0 = ivf.search_qadc(
-        ix0, queries, r=100, ma=6, keep=0.05, grouped=True, interpret=True
-    )
-    np.testing.assert_array_equal(np.asarray(l1), np.asarray(l0))
-    np.testing.assert_array_equal(np.asarray(d1), np.asarray(d0))
-
-    d1, l1 = ivf.search_adc(ix, queries, r=100, ma=6, interpret=True)
-    d0, l0 = ivf.search_adc(ix0, queries, r=100, ma=6, interpret=True)
-    np.testing.assert_array_equal(np.asarray(l1), np.asarray(l0))
-    np.testing.assert_array_equal(np.asarray(d1), np.asarray(d0))
+    for kw in (dict(rerank=True), dict(rerank=False, saturate=True)):
+        d1, l1 = ivf.search_qadc(
+            ix, queries, r=100, ma=6, keep=0.05, grouped=True, direct=False,
+            interpret=True, **kw,
+        )
+        d0, l0 = ivf.search_qadc(
+            ix, queries, r=100, ma=6, keep=0.05, grouped=True, direct=False,
+            **kw,
+        )
+        np.testing.assert_array_equal(np.asarray(l1), np.asarray(l0))
+        np.testing.assert_array_equal(np.asarray(d1), np.asarray(d0))

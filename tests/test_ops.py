@@ -207,8 +207,8 @@ def test_exact_tile_screen_clustered_adversarial():
 
 
 def test_exact_tile_screen_topk_variant_matches():
-    """QADC_SCREEN_TOPK=1 (the lax.top_k A/B variant — e2e-rejected on v5e
-    but kept as an instrument) must return the same exact values, with
+    """QADC_SCREEN_TOPK=1 (the lax.top_k A/B variant, kept as an
+    instrument) must return the same exact values, with
     indices referencing the returned values."""
     import os
 

@@ -121,10 +121,9 @@ def test_sharded_overlap_chunks_identical(built):
 
 
 def test_sharded_tq_matches_row128(built):
-    """Sharded tq grouped kernel == sharded row128 kernel, bit-exact
-    (planes present vs stripped on the same repadded index)."""
-    import dataclasses
-
+    """Sharded scan kernel (interpreted) == sharded plain-XLA scan,
+    bit-exact: the integer window minima are identical, so the whole tail
+    is too (repadded index, part_pad a multiple of the kernel block)."""
     from qadc_tpu.index.build import repad_partitions
 
     index, queries, gt = built
@@ -132,13 +131,11 @@ def test_sharded_tq_matches_row128(built):
     ix = repad_partitions(index, pad)
     mesh = make_mesh()
     sharded = shard_ivf_partitions(ix, mesh)
-    assert sharded.planes is not None and sharded.tq_block_n() == 2048
-    sharded0 = dataclasses.replace(sharded, planes=None)
     d1, l1 = search_qadc_ivf_sharded(
         sharded, queries, r=50, ma=6, keep=0.05, mesh=mesh, interpret=True
     )
     d0, l0 = search_qadc_ivf_sharded(
-        sharded0, queries, r=50, ma=6, keep=0.05, mesh=mesh, interpret=True
+        sharded, queries, r=50, ma=6, keep=0.05, mesh=mesh, interpret=False
     )
     np.testing.assert_array_equal(np.asarray(l1), np.asarray(l0))
     np.testing.assert_array_equal(np.asarray(d1), np.asarray(d0))
